@@ -14,7 +14,7 @@ Inputs (reference-contract CSVs, nbody-par.c:956 / nbody-seq.c:488):
                                (bin/experiments.sh --measure-comm)
 
 Usage: python benchmarks/speedup_tables.py [par_csv] [seq_csv]
-Emits the markdown tables included in docs/REPORT.md.
+Emits the tables as markdown.
 """
 
 from __future__ import annotations

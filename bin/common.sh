@@ -1,5 +1,5 @@
 # Shared harness helpers (sourced by the bin/ scripts).
-# TPU-native analog of the reference's prun-based harness (bin/tests.sh etc.):
+# JAX analog of the reference's prun-based harness (bin/tests.sh etc.):
 # "ranks" become --devices=K shards of the body axis; tests run on a virtual
 # multi-device CPU mesh so they need no real multi-chip hardware.
 
@@ -8,9 +8,7 @@ export PYTHONPATH="$REPO_ROOT${PYTHONPATH:+:$PYTHONPATH}"
 
 NBODY="python -m parallel_nbody_tpu.cli"
 
-# Virtual 8-device CPU mesh unless the caller picked a platform explicitly.
-# NBODY_PLATFORM routes through jax.config.update inside the CLI — the
-# JAX_PLATFORMS env var is ignored by some ambient platform plugins.
+# Virtual 8-device CPU mesh.
 nbody_cpu() {
   # XLA flag parsing is last-occurrence-wins: strip any stale ambient
   # device-count flag and append ours LAST, or a leftover
@@ -19,7 +17,7 @@ nbody_cpu() {
   local xla
   xla="$(printf '%s' "${XLA_FLAGS:-}" |
          sed -E 's/--xla_force_host_platform_device_count=[0-9]+//g')"
-  NBODY_PLATFORM=cpu \
+  JAX_PLATFORMS=cpu \
   XLA_FLAGS="$xla --xla_force_host_platform_device_count=8" \
   python -m parallel_nbody_tpu.cli "$@"
 }

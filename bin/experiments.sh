@@ -2,9 +2,9 @@
 # Parallel experiment sweep — port of the reference's bin/experiments.sh:
 # REPLICATES x N in {512,1024,4096,10000} x shards in {2,4,6,8}, 100 steps,
 # CSV appended under --run-xps. Pass --measure-comm to add the comm column,
-# --fast for the TPU speed path.  Rows byte-match the reference contract
+# --fast for the fp32 speed path.  Rows byte-match the reference contract
 # (nbody-par.c:956); pass --xps-precise for 6-decimal COMMTIME/RATIO (sub-ms
-# ICI collectives vanish at %.3f) — that mode defaults to a separate
+# collectives vanish at %.3f) — that mode defaults to a separate
 # experiments_precise.csv.  Output: experiments.csv
 set -u
 . "$(dirname "$0")/common.sh"

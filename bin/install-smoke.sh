@@ -23,9 +23,9 @@ rm -rf "$REPO_ROOT/build" "$REPO_ROOT"/*.egg-info  # in-tree build residue
 test -x "$PFX/bin/nbody-tpu"
 
 out_installed=$(cd /tmp && env -u PYTHONPATH \
-  PYTHONPATH="$PFX/lib/$PYDIR/site-packages" NBODY_PLATFORM=cpu \
+  PYTHONPATH="$PFX/lib/$PYDIR/site-packages" JAX_PLATFORMS=cpu \
   "$PFX/bin/nbody-tpu" 24 0 "$ARENA" 10 2>/dev/null)
-out_module=$(cd /tmp && NBODY_PLATFORM=cpu \
+out_module=$(cd /tmp && JAX_PLATFORMS=cpu \
   python -m parallel_nbody_tpu.cli 24 0 "$ARENA" 10 2>/dev/null)
 
 if [ "$out_installed" = "$out_module" ] && [ -n "$out_installed" ]; then

@@ -22,7 +22,7 @@ for PID in $(seq 0 $((NPROCS - 1))); do
   COORDINATOR_ADDRESS="localhost:$PORT" \
   NBODY_NUM_PROCESSES="$NPROCS" \
   NBODY_PROCESS_ID="$PID" \
-  NBODY_PLATFORM=cpu \
+  JAX_PLATFORMS=cpu \
   XLA_FLAGS="--xla_force_host_platform_device_count=2" \
   python -m parallel_nbody_tpu.cli "$N" 0 "$ARENA" "$STEPS" \
     --devices="$NDEV" "$@" | sed '/^\[Gloo\]/d' &

@@ -1,6 +1,6 @@
 #!/bin/bash
 # Test sweep — port of the reference's bin/run-tests.sh grid (NP in 1..8 x
-# CPUs-per-proc in {1,4,16} = 24 combos).  The TPU grid is NP shards in 1..8
+# CPUs-per-proc in {1,4,16} = 24 combos).  Here the grid is NP shards in 1..8
 # x kernel variant in {trig, fast, pallas} = 24 combos: re-partitioning
 # invariance must hold for every implementation path, not just the default
 # one.  Reports failures at the end.

@@ -1,12 +1,12 @@
 #!/bin/bash
-# Single golden-diff test — TPU-native port of the reference's bin/tests.sh:
+# Single golden-diff test — port of the reference's bin/tests.sh:
 #   tests.sh NP VARIANT N
-# The reference's grid was NP ranks x CPUs-per-proc (OpenMP threads); on TPU
-# intra-chip parallelism is always on, so the second axis becomes the KERNEL
+# The reference's grid was NP ranks x CPUs-per-proc (OpenMP threads); here
+# intra-device parallelism is always on, so the second axis becomes the KERNEL
 # VARIANT — the implementation matrix the build actually has:
 #   trig   — XLA kernel, reference trig force decomposition (parity path)
 #   fast   — XLA kernel, transcendental-free rsqrt path
-#   pallas — Pallas TPU kernel (interpret-mode emulation off-TPU)
+#   pallas — Pallas Triton kernel (interpreted on the CPU)
 # Each variant is oracled by its own --devices=1 run (re-partitioning
 # invariance, the reference's correctness property); the trig oracle is
 # additionally diffed against the vendored golden fixture when one exists.

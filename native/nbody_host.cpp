@@ -1,7 +1,7 @@
 // Native host-side components for parallel_nbody_tpu.
 //
 // The reference's native pieces are two C programs (nbody-seq.c/nbody-par.c);
-// the TPU compute path replaces their kernels with XLA/Pallas, but two
+// the device compute path replaces their kernels with XLA/Pallas, but two
 // host-side pieces stay native for exactness and speed:
 //
 //   1. glibc rand() (TYPE_3 additive feedback) replica + the reference's

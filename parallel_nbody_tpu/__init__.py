@@ -1,14 +1,15 @@
-"""parallel_nbody_tpu — a TPU-native N-body simulation engine.
+"""parallel_nbody_tpu — a GPU N-body simulation engine in JAX.
 
 A ground-up rebuild of jfdev001/parallel-nbody (an MPI+OpenMP direct O(N^2)
 2-D gravitational simulator in C) as an idiomatic JAX/XLA/Pallas framework:
 
   - ``config`` / ``state``     — frozen physics config, SoA pytree state
-  - ``ops``                    — force / integration ops (dense XLA + Pallas)
+  - ``ops``                    — force / integration ops (dense XLA + a
+                                 Pallas Triton kernel)
   - ``models.engine``          — jitted on-device step loop
   - ``parallel``               — mesh sharding, all-gather / ppermute-ring /
-                                 2-D force-matrix multi-chip steps, and
-                                 multi-host launch (the MPI layer, TPU-style)
+                                 2-D force-matrix multi-device steps, and
+                                 multi-host launch (the MPI layer)
   - ``utils``                  — glibc-rand parity init, PPM I/O, rendering,
                                  output contract, checkpointing, timing
 

@@ -33,21 +33,17 @@ class SimConfig:
         decomposition ``force * cos(atan2(dy, dx))`` bit-for-bit semantics
         (nbody/nbody-seq.c:91-98) — required for golden-output parity.
         ``"fast"`` uses the algebraically equal ``force * dx * rsqrt(dsqr)``,
-        which is the TPU speed-of-light path (no transcendentals).
+        the speed path (no transcendentals).
       dtype: element type for device computation.  Parity runs use float64 on
-        CPU; TPU runs use float32.
-      kernel: ``"xla"`` uses the dense XLA formulation (fusion-friendly at
-        small/medium N); ``"pallas"`` tiles the interaction matrix through
-        VMEM with the hand-written TPU kernel (ops/pallas_step.py) — required
-        beyond ~16K bodies where the dense (N, N) matrix stops fitting.
-      tile_i / tile_j: Pallas row/column tile sizes.
+        CPU; GPU runs default to float32.
+      kernel: ``"xla"`` uses the dense XLA formulation; ``"pallas"`` tiles
+        the interaction matrix with the hand-written Triton kernel
+        (ops/pallas_step.py), interpreted on the CPU.
       accum: ``"plain"`` (default) sums force partials directly;
-        ``"compensated"`` Kahan-compensates the Pallas kernels' partial-sum
-        chains (per column tile within a band, and across HBM bands in the
-        streamed kernel) — the "fp64-emulated accumulation" option of
-        BASELINE config 3, priced and validated against the fp64 oracle in
-        benchmarks/drift_study.py.  Pallas kernels only; the xla/trig paths
-        use fp64 on CPU where compensation is moot.
+        ``"compensated"`` Kahan-compensates the Pallas kernel's per-pair
+        accumulation — the "fp64-emulated accumulation" option of BASELINE
+        config 3.  Pallas kernel only; the xla/trig paths use fp64 on CPU
+        where compensation is moot.
     """
 
     xdim: int = 1024
@@ -58,12 +54,7 @@ class SimConfig:
     force_mode: ForceMode = "trig"
     dtype: str = "float64"
     kernel: Literal["xla", "pallas"] = "xla"
-    tile_i: int = 1024
-    tile_j: int = 1024
     accum: Literal["plain", "compensated"] = "plain"
-    # Run Pallas kernels in interpret mode (CPU-testable emulation of the
-    # TPU kernel — used by the test suite's virtual mesh; never on hardware).
-    pallas_interpret: bool = False
 
     def __post_init__(self):
         if self.kernel == "pallas" and self.force_mode == "trig":

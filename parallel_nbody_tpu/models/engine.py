@@ -28,19 +28,17 @@ def step(cfg: SimConfig, state: State) -> State:
                                        pallas_forces)
 
         # Coincident-pair dispatch: the dx-bias machinery that reproduces
-        # the reference's atan2(0,0) kick (nbody-seq.c:91-106) costs ~2 VPU
-        # ops in the O(N^2) inner loop (~3% of step time, measured).  An
-        # exact O(N log N) duplicate-position test selects the biased kernel
-        # only on steps that actually contain coincident distinct bodies —
-        # the first step(s) of a glibc integer-pixel init — so every other
-        # step runs at full speed with identical results.
+        # the reference's atan2(0,0) kick (nbody-seq.c:91-106) adds per-pair
+        # work to the O(N^2) inner loop.  An exact O(N log N)
+        # duplicate-position test selects the biased kernel only on steps
+        # that actually contain coincident distinct bodies — the first
+        # step(s) of a glibc integer-pixel init — so every other step runs
+        # the cheaper kernel with identical results.
         xf, yf = forces_coincident_dispatch(
             state.x, state.y, state.mass,
             lambda biased: pallas_forces(
                 cfg, state.x, state.y, state.mass, state.radius,
-                tile_i=cfg.tile_i, tile_j=cfg.tile_j,
-                interpret=cfg.pallas_interpret, biased=biased,
-                accum=cfg.accum))
+                biased=biased, accum=cfg.accum))
     else:
         xf, yf = compute_forces_dense(cfg, state.x, state.y, state.mass,
                                       state.radius)
@@ -78,96 +76,6 @@ def run_trajectory(cfg: SimConfig, state: State, steps: int,
 
     final, (xs, ys) = lax.scan(body, state, None, length=steps // record_every)
     return final, xs, ys
-
-
-def make_hosted_row_step(cfg: SimConfig, n: int, row_chunk: int = 524288):
-    """Host-driven row-chunked stepping for HUGE single-chip N (CLI support
-    for the N=10M scale demo, VERDICT r3 #4).
-
-    One fused on-device step at N=10M is ~490 s of device work (docs/
-    REPORT.md) — a single dispatch that long exceeds transports that bound
-    per-dispatch duration (~60 s here).  This builds the same step as
-    ``step`` but dispatches the force pass in row chunks (rows x ALL columns
-    through the HBM-streamed kernel, ~25 s each at the default chunk), then
-    integrates; everything stays on-device between dispatches.  The exact
-    coincident-pair test runs once per step on the host (positions are fixed
-    for the whole force pass) and selects the biased/unbiased kernel
-    statically for every chunk — the host-driven analog of
-    ``forces_coincident_dispatch``.
-
-    Returns (step_fn, warmup): ``step_fn(state, fence=None) -> state`` with
-    ``fence(arr)`` called after each dispatch; ``warmup()`` AOT-compiles
-    every program variant (both kernel biases, the tail chunk, integration)
-    so no compile lands inside a timed region.
-    """
-    from ..ops.pallas_step import any_coincident, pallas_block_forces_streamed
-
-    row_chunk = min(row_chunk, n)
-    chunk_sizes = sorted({row_chunk, n % row_chunk or row_chunk})
-    dtype = jnp.dtype(cfg.dtype)
-
-    @functools.partial(jax.jit, static_argnames=("k", "biased"))
-    def force_rows(x, y, m, r, r0, k, biased):
-        xi = lax.dynamic_slice_in_dim(x, r0, k)
-        yi = lax.dynamic_slice_in_dim(y, r0, k)
-        mi = lax.dynamic_slice_in_dim(m, r0, k)
-        ri = lax.dynamic_slice_in_dim(r, r0, k)
-        return pallas_block_forces_streamed(
-            cfg, xi, yi, mi, ri, x, y, m, r, row_g0=r0, col_g0=0,
-            interpret=cfg.pallas_interpret, biased=biased, accum=cfg.accum)
-
-    @jax.jit
-    def integrate(st, xf, yf):
-        xv, yv = compute_velocities(cfg, st.xv, st.yv, xf, yf, st.mass)
-        x, y, xv, yv = compute_positions(cfg, st.x, st.y, xv, yv,
-                                         mass=st.mass)
-        return State(x, y, xv, yv, xf, yf, st.mass, st.radius)
-
-    coincident = jax.jit(any_coincident)
-
-    # AOT-compiled executables are stored and INVOKED directly (lower+compile
-    # does not populate the jit dispatch cache, so calling the jitted
-    # functions would re-compile inside the timed region).
-    vec = jax.ShapeDtypeStruct((n,), dtype)
-    i32 = jax.ShapeDtypeStruct((), jnp.int32)
-    compiled = {}
-
-    def _get(key):
-        if key not in compiled:
-            if key == "integrate":
-                st = State(*(vec,) * 8)
-                compiled[key] = integrate.lower(st, vec, vec).compile()
-            elif key == "coincident":
-                compiled[key] = coincident.lower(vec, vec, vec).compile()
-            else:
-                k, biased = key
-                compiled[key] = force_rows.lower(
-                    vec, vec, vec, vec, i32, k=k, biased=biased).compile()
-        return compiled[key]
-
-    def warmup():
-        for k in chunk_sizes:
-            for biased in (True, False):
-                _get((k, biased))
-        _get("integrate")
-        _get("coincident")
-
-    def step_fn(state: State, fence=None) -> State:
-        biased = bool(_get("coincident")(state.x, state.y, state.mass))
-        fxs, fys = [], []
-        for r0 in range(0, n, row_chunk):
-            k = min(row_chunk, n - r0)
-            fx, fy = _get((k, biased))(state.x, state.y, state.mass,
-                                       state.radius, jnp.int32(r0))
-            if fence is not None:
-                fence(fx)
-            fxs.append(fx)
-            fys.append(fy)
-        xf = jnp.concatenate(fxs)
-        yf = jnp.concatenate(fys)
-        return _get("integrate")(state, xf, yf)
-
-    return step_fn, warmup
 
 
 def total_energy(cfg: SimConfig, state: State) -> jnp.ndarray:

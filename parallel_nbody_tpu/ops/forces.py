@@ -28,13 +28,13 @@ ranks — both owners apply ``+x`` (nbody-par.c:338-353 with intra_world=false)
 oracle, which also keeps output invariant under re-sharding.)
 
 The dense op materializes the (N, N) pair matrix once per step — the right
-shape for XLA fusion on a single chip at small/medium N.  The Pallas kernel in
-ops/pallas_step.py tiles the same computation through VMEM for large N, and
+shape for XLA fusion on a single device at small/medium N.  The Pallas kernel
+in ops/pallas_step.py tiles the same computation in registers, and
 parallel/sharded_step.py shards the row axis over a device mesh.
 
 ``mode="trig"`` keeps the reference's transcendental decomposition and the
 upper-triangle ± accumulation (pair values computed once, exactly like the C
-loop).  ``mode="fast"`` is the TPU speed-of-light path: algebraically equal
+loop).  ``mode="fast"`` is the speed path: algebraically equal
 ``force * dx * rsqrt(dsqr)``, full (i != j) matrix so each row sums
 independently (the same redundancy model the reference's MPI version uses for
 cross-rank pairs, nbody-par.c:302-308).
@@ -87,7 +87,7 @@ def _sequential_row_sum(s):
     then ``+= fx[k,j]`` for j > k; nbody-seq.c:87-106).  A tree reduction
     (jnp.sum) computes the same value up to rounding, but at large N the
     different rounding shows in the 3-decimal print (measured boundary:
-    1 field of 60,000 at N=10000x100 — docs/REPORT.md).  lax.scan is
+    1 field of 60,000 at N=10000x100, on the CPU).  lax.scan is
     sequential by semantics, closing the gap at any N.
     """
     def add(acc, col):

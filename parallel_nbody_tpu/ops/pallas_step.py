@@ -1,20 +1,20 @@
-"""Pallas TPU force kernel — the hot O(N^2) loop, tiled through VMEM.
+"""Pallas force kernel through Triton — the hot O(N^2) loop on the GPU.
 
-This is the TPU-native replacement for the reference's compute_forces
-(nbody-seq.c:79-109 / nbody-par.c:285-359, where OpenMP shared the pair loop
-across cores).  Design:
+This replaces the reference's compute_forces (nbody-seq.c:79-109 /
+nbody-par.c:285-359, where OpenMP shared the pair loop across cores) with the
+shared-memory tiling of Nyland, Harris & Prins (arXiv 0707.0438):
 
-  - Body arrays live in VMEM as (1, N) vectors (lane-major layout); at any
-    parity-relevant N (up to the 128K resident limit) all four fit
-    comfortably.
-  - The grid walks row tiles of the interaction matrix; each program computes
-    the total force on TILE_I bodies by sweeping column tiles of TILE_J
-    bodies with a fori_loop, keeping every intermediate (TILE_I, TILE_J)
-    block in VMEM/registers.
-  - Transcendental-free except ONE rsqrt per pair:
+  - The grid is 1-D over row blocks of ``BLOCK_I`` bodies; blocks run in
+    parallel on the SMs and carry nothing from one to the next.
+  - Inside a program a ``fori_loop`` walks column tiles of ``BLOCK_J``
+    bodies.  Each column tile is loaded once and reused by all ``BLOCK_I``
+    rows of the program from registers.
+  - The x/y sums are (BLOCK_I, BLOCK_J) accumulators carried by the loop and
+    reduced along the column axis once, after the loop.
+  - One rsqrt per pair:
         scale = m_j * rsqrt(forced^2 * dsqr)
     which equals m_j / (forced * |d|); the row factor G * m_i is applied once
-    per row AFTER the column reduction, so the inner loop is ~17 VPU ops/pair.
+    per row AFTER the column reduction.
   - Zero-mass padding needs no masks: far-away padding overflows
     forced^2*dsqr to +inf and rsqrt(inf) == 0; the m_j factor and the
     G*m_i row factor keep everything else at zero.
@@ -23,49 +23,40 @@ across cores).  Design:
 Coincident-pair semantics (nbody-seq.c:91-106; see ops/forces.py): two
 DISTINCT bodies at the same position must feel ``force * (1, 0)`` with sign
 ``sign(gj - gi)`` by GLOBAL body index, while true self-pairs stay at zero.
-The kernel implements this with a dx bias, priced by a 3-segment column
-sweep (measured: a per-pair bias tensor costs ~12% of step time, a constant
-bias ~4% — benchmarks/bias_variants_probe.py):
+The kernel implements this with a dx bias, applied per column segment:
 
   dx' = dx + bias, so at a coincident pair |d'| = |bias| and the
   contribution m_j * dx' / (forced * |d'|) collapses to
   m_j * sign(bias) / forced — the reference kick, |bias| cancelling.
 
-  - column tiles ENTIRELY BELOW the row tile's global index range: every
+  - column tiles ENTIRELY BELOW the row block's global index range: every
     gj < gi, so bias = -C, a compile-time scalar constant (C = 2^-26;
     C^2 << (r_i+r_j)^2 keeps softening exact, and C perturbs non-coincident
     dx by at most ~1 ulp).
   - column tiles ENTIRELY ABOVE: bias = +C.
-  - the <= ceil(tile_i/tile_j)+1 OVERLAPPING tiles: per-pair
-    bias = (gj - gi) * 2^-50 computed from OVERLAP-LOCAL indices (exact for
-    any N: the scale is a power of two and local indices are < 2^24, so
-    bias differences never round — no sign flips).  Self-pairs get
-    bias == 0 -> dx' == 0 -> zero contribution via the eps term.
+  - the OVERLAPPING tiles: per-pair bias = (gj - gi) * 2^-50 computed from
+    block-relative indices (exact for any N: the scale is a power of two and
+    the indices are < 2^24, so bias differences never round — no sign
+    flips).  Self-pairs get bias == 0 -> dx' == 0 -> zero contribution.
 
-The segment bounds are traced integer tile indices; the three fori_loops
-have dynamic trip counts, so only real overlap tiles pay the per-pair cost.
-On top of that, models/engine.step gates the whole bias machinery at
-RUNTIME: an exact O(N log N) duplicate-position test (``any_coincident``)
-selects ``biased=False`` — the round-2 inner loop, ~2 VPU ops/pair
-cheaper — for every step with no coincident distinct bodies (measured:
-1.0285e11 vs 1.005e11 pairs/s at N=64K).
-The eps in ``rsqrt(forced^2*dsqr + eps)`` (1e-36, fused into the multiply
-chain) only de-NaNs two measure-zero corners: all-zero padding products and
-a real pair whose dx happens to equal the bias exactly (contribution
-becomes 0 instead of NaN).
+The segment bounds are traced integers; the three loops have dynamic trip
+counts, so only real overlap tiles pay the per-pair index arithmetic.
+models/engine.step gates the whole bias machinery at RUNTIME: an exact
+O(N log N) duplicate-position test (``any_coincident``) selects
+``biased=False`` for every step with no coincident distinct bodies.
+The eps in ``rsqrt(forced^2*dsqr + eps)`` only de-NaNs two measure-zero
+corners: all-zero padding products and a real pair whose dx happens to equal
+the bias exactly (contribution becomes 0 instead of NaN).
 
 The kernel is rectangular (row block x column block), so the same code path
-serves the single-chip square case, the sharded all-gather case (local rows x
-gathered columns) and the ppermute ring case (local rows x visiting block) —
-the TPU analogs of the reference's owned-x-owned / owned-x-remote split.
-``row_g0``/``col_g0`` carry each block's global starting body index.
+serves the single-device square case, the sharded all-gather case (local rows
+x gathered columns), the ppermute ring case (local rows x visiting block) and
+grid2d's cells.  ``row_g0``/``col_g0`` carry each block's global starting
+body index.  One-sided accumulation (each row block sums over ALL columns)
+follows the reference's cross-rank redundancy model (nbody-par.c:302-308).
 
-One-sided accumulation (each row tile sums over ALL columns) follows the
-reference's cross-rank redundancy model (nbody-par.c:302-308) rather than
-Newton-3rd folding: on the VPU the duplicated multiply-adds are cheaper than
-the cross-tile scatter a symmetric update would require.  (Also measured
-and rejected: MXU-offloaded column reductions — the (tile, tile) x ones
-matvec does not overlap and costs ~18%; see docs/REPORT.md.)
+The kernel is compiled by Triton on the GPU and run by the Pallas
+interpreter on the CPU (the test platform); any other platform is an error.
 """
 
 from __future__ import annotations
@@ -76,7 +67,18 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
+
+# Block sizes and launch parameters, chosen by a sweep on an H100 (PERF.md):
+# 32 x 64 with 8 warps is within noise of the fastest configuration at
+# N = 65536, and keeps each (BLOCK_I, BLOCK_J) accumulator at 8 registers a
+# thread, far from the spills that make 64 x 128 or 128 x 128 tiles ten
+# times slower.  At N = 16384 it launches 512 programs for the card's 132
+# SMs.
+BLOCK_I = 32
+BLOCK_J = 64
+NUM_WARPS = 8
+NUM_STAGES = 2
 
 # De-NaN floor, added (not max-ed: the add fuses into the multiply chain)
 # to forced^2 * dsqr.  Real coincident pairs have forced >= 4 (radius >= 1)
@@ -104,12 +106,27 @@ def _consts(dtype):
     return _CBIAS, _PBIAS, _EPS
 
 
+def interpret_mode() -> bool:
+    """Whether Pallas kernels run interpreted on the default backend.
+
+    The CPU has no Pallas compiler, so kernels are interpreted there (the
+    test platform); on the GPU they are compiled by Triton.  There is no
+    silent fallback for any other platform."""
+    backend = jax.default_backend()
+    if backend == "cpu":
+        return True
+    if backend == "gpu":
+        return False
+    raise ValueError("the Pallas force kernel supports the gpu and cpu "
+                     "backends, not %r" % backend)
+
+
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def _pad_lane(a, size: int, fill: float):
-    """Pad a 1-D body array up to ``size`` lanes."""
+def _pad(a, size: int, fill: float):
+    """Pad a 1-D body array up to ``size`` entries."""
     n = a.shape[0]
     if n == size:
         return a
@@ -119,417 +136,160 @@ def _pad_lane(a, size: int, fill: float):
 def _pad_block(x, y, m, r, size: int):
     """Pad one body block (positions far away, zero mass/radius) so padding
     bodies neither feel nor exert force — the internal analog of
-    state.pad_state, applied per-kernel so awkward N never shrinks the tile
-    (tiny tiles fail Mosaic lane alignment on real TPUs and waste the VPU)."""
-    return (_pad_lane(x, size, _FAR), _pad_lane(y, size, _FAR),
-            _pad_lane(m, size, 0.0), _pad_lane(r, size, 0.0))
-
-
-def _as_scalar_arr(v):
-    return jnp.asarray(v, jnp.int32).reshape(1, 1)
+    state.pad_state, applied per call so any N maps onto whole blocks."""
+    return (_pad(x, size, _FAR), _pad(y, size, _FAR),
+            _pad(m, size, 0.0), _pad(r, size, 0.0))
 
 
 def _kahan_add(acc, comp, val):
-    """One classic Kahan (compensated summation) step: fold ``val`` into the
-    running sum ``acc`` carrying the rounding error in ``comp``.  Gives the
-    partial-sum chain near-fp64 behavior at ~3 extra VPU adds per fold (the
-    folds happen once per column TILE, not per pair, so the inner-loop cost
-    is ~3/tile_j ops/pair — negligible; measured on hardware in
-    benchmarks/drift_study.py).  Safe under XLA: it never reassociates
-    floating-point adds, so the error term is not folded away."""
+    """One Kahan (compensated summation) step: fold ``val`` into the running
+    sum ``acc`` carrying the rounding error in ``comp`` (true sum = acc -
+    comp).  XLA and Triton never reassociate floating-point adds, so the
+    error term is not folded away."""
     y = val - comp
     t = acc + y
     comp = (t - acc) - y
     return t, comp
 
 
-def _segment_bounds(r0_rel, tile_i: int, tile_j: int, n_tiles):
+def _compute_dtype(dtype):
+    """In-kernel compute type: sub-32-bit inputs compute in float32.
+
+    bfloat16 is a STORAGE format here (halves the bytes each column tile
+    loads), never an accumulation type: summing O(N) force partials in an
+    8-bit mantissa would swamp the signal.  fp32/fp64 pass through
+    unchanged (astype to the same dtype is a no-op)."""
+    return jnp.float32 if jnp.dtype(dtype).itemsize < 4 else dtype
+
+
+def _segment_bounds(r0_rel, block_i: int, block_j: int, n_tiles: int):
     """Split ``n_tiles`` column tiles into (below, overlap, above) segments
-    relative to a row tile whose BAND-LOCAL index range is
-    [r0_rel, r0_rel + tile_i).  Returns traced (j1, j2): tiles [0, j1) lie
-    entirely below the row range, [j1, j2) overlap it, [j2, n_tiles) lie
-    entirely above."""
-    j1 = jnp.clip(jnp.floor_divide(r0_rel, tile_j), 0, n_tiles)
-    j2 = jnp.clip(jnp.floor_divide(r0_rel + tile_i + tile_j - 1, tile_j),
+    relative to a row block whose index range, relative to the column
+    block's start, is [r0_rel, r0_rel + block_i).  Returns traced (j1, j2):
+    tiles [0, j1) lie entirely below the row range, [j1, j2) overlap it,
+    [j2, n_tiles) lie entirely above."""
+    j1 = jnp.clip(jnp.floor_divide(r0_rel, block_j), 0, n_tiles)
+    j2 = jnp.clip(jnp.floor_divide(r0_rel + block_i + block_j - 1, block_j),
                   j1, n_tiles)
     return j1, j2
 
 
-def _make_col_sweep(xi, yi, ri, irel, col_block_read, *, tile_i, tile_j,
-                    biased: bool = True, accum: str = "plain"):
-    """Build the 3-segment column sweep over one column block.
-
-    ``col_block_read(c0)`` returns (xj, yj, mj, rj) as (1, tile_j) for the
-    sub-tile starting at BLOCK-LOCAL lane c0.  ``irel`` ((tile_i, 1) int32)
-    holds the row tile's body indices RELATIVE to the column block's global
-    start, so overlap-tile bias differences stay exact at any N.  Returns
-    sweep(j1, j2, n_tiles, acc) -> acc applying below/overlap/above, where
-    ``acc`` is (acc_x, acc_y) for accum="plain" or
-    (acc_x, comp_x, acc_y, comp_y) for accum="compensated" (Kahan folds of
-    the per-tile partial sums; see _kahan_add and SimConfig.accum).
-
-    ``biased=False`` drops the coincident-pair dx bias entirely (the round-2
-    inner loop, ~2 VPU ops/pair cheaper): ONLY correct when the caller has
-    proven no two distinct massive bodies coincide (see ``any_coincident``
-    and the runtime dispatch in models/engine.step).
-    """
-    dtype = xi.dtype
-    cbias, pbias, eps = _consts(dtype)
+def _force_kernel(off_ref, xi_ref, yi_ref, mi_ref, ri_ref,
+                  xj_ref, yj_ref, mj_ref, rj_ref, xf_ref, yf_ref,
+                  *, block_i: int, block_j: int, n_cols: int,
+                  gravity: float, biased: bool, accum: str):
+    cdt = _compute_dtype(xi_ref.dtype)
+    cbias, pbias, eps = _consts(cdt)
     compensated = accum == "compensated"
 
-    def pair_tile(c0, acc, bias_of):
-        xj, yj, mj, rj = col_block_read(c0)
-        dx = (xj - xi) if bias_of is None else (xj - xi) + bias_of(c0)
+    xi = xi_ref[...].astype(cdt)[:, None]
+    yi = yi_ref[...].astype(cdt)[:, None]
+    ri = ri_ref[...].astype(cdt)[:, None]
+    # Row indices relative to the column block's global start.
+    r0_rel = off_ref[0] + pl.program_id(0) * block_i
+    irel = r0_rel + lax.broadcasted_iota(jnp.int32, (block_i, 1), 0)
+
+    def pair_tile(t, acc, bias_of):
+        c0 = pl.multiple_of(t * block_j, block_j)
+        cols = pl.ds(c0, block_j)
+        xj = xj_ref[cols].astype(cdt)[None, :]
+        yj = yj_ref[cols].astype(cdt)[None, :]
+        mj = mj_ref[cols].astype(cdt)[None, :]
+        rj = rj_ref[cols].astype(cdt)[None, :]
+        dx = xj - xi
+        if bias_of is not None:
+            dx = dx + bias_of(c0)
         dy = yj - yi
         dsqr = dx * dx + dy * dy
         mind = ri + rj
         forced = jnp.maximum(dsqr, mind * mind)
-        inv = lax.rsqrt(forced * forced * dsqr + eps)
-        scale = mj * inv
-        px = jnp.sum(scale * dx, axis=1, keepdims=True)
-        py = jnp.sum(scale * dy, axis=1, keepdims=True)
+        scale = mj * lax.rsqrt(forced * forced * dsqr + eps)
         if not compensated:
             acc_x, acc_y = acc
-            return acc_x + px, acc_y + py
+            return acc_x + scale * dx, acc_y + scale * dy
         acc_x, comp_x, acc_y, comp_y = acc
-        acc_x, comp_x = _kahan_add(acc_x, comp_x, px)
-        acc_y, comp_y = _kahan_add(acc_y, comp_y, py)
+        acc_x, comp_x = _kahan_add(acc_x, comp_x, scale * dx)
+        acc_y, comp_y = _kahan_add(acc_y, comp_y, scale * dy)
         return acc_x, comp_x, acc_y, comp_y
 
-    below = functools.partial(
-        pair_tile, bias_of=lambda c0: jnp.asarray(-cbias, dtype))
-    above = functools.partial(
-        pair_tile, bias_of=lambda c0: jnp.asarray(cbias, dtype))
-
     def overlap_bias(c0):
-        # Per-pair bias from block-local indices: exact at any N.
-        jrel = c0 + lax.broadcasted_iota(jnp.int32, (1, tile_j), 1)
-        return (jrel - irel).astype(dtype) * pbias
+        # Per-pair bias from block-relative indices: exact at any N.
+        jrel = c0 + lax.broadcasted_iota(jnp.int32, (1, block_j), 1)
+        return (jrel - irel).astype(cdt) * pbias
 
-    overlap = functools.partial(pair_tile, bias_of=overlap_bias)
-    plain = functools.partial(pair_tile, bias_of=None)
+    def seg(lo, hi, bias_of, acc):
+        return lax.fori_loop(
+            lo, hi, lambda t, a: pair_tile(t, a, bias_of), acc)
 
-    def seg(lo, hi, body, acc):
-        return lax.fori_loop(lo, hi, lambda j, a: body(j * tile_j, a), acc)
+    zero = jnp.zeros((block_i, block_j), cdt)
+    acc = (zero,) * (4 if compensated else 2)
+    n_tiles = n_cols // block_j
+    if biased:
+        j1, j2 = _segment_bounds(r0_rel, block_i, block_j, n_tiles)
+        acc = seg(0, j1, lambda c0: jnp.asarray(-cbias, cdt), acc)
+        acc = seg(j1, j2, overlap_bias, acc)
+        acc = seg(j2, n_tiles, lambda c0: jnp.asarray(cbias, cdt), acc)
+    else:
+        acc = seg(0, n_tiles, None, acc)
 
-    def sweep(j1, j2, n_tiles, acc):
-        acc = seg(0, j1, below, acc)
-        acc = seg(j1, j2, overlap, acc)
-        return seg(j2, n_tiles, above, acc)
-
-    def sweep_plain(j1, j2, n_tiles, acc):
-        return seg(0, n_tiles, plain, acc)
-
-    return sweep if biased else sweep_plain
-
-
-def _compute_dtype(dtype):
-    """In-kernel compute type: sub-32-bit inputs compute in float32.
-
-    bfloat16 is a STORAGE format here (halves the HBM traffic the streamed
-    kernel is bound by), never an accumulation type: Mosaic restricts
-    minor-dim-inserting reshapes to 32-bit types, the VPU's lanes are fp32
-    regardless, and summing O(N) force partials in an 8-bit mantissa would
-    swamp the signal.  fp32/fp64 pass through unchanged, so the parity
-    paths are byte-identical (astype to the same dtype is a no-op)."""
-    return jnp.float32 if jnp.dtype(dtype).itemsize < 4 else dtype
-
-
-def _acc_init(tile_i: int, dtype, accum: str):
-    z = jnp.zeros((tile_i, 1), dtype)
-    return (z, z, z, z) if accum == "compensated" else (z, z)
-
-
-def _acc_finish(acc):
-    """(acc_x, acc_y) out of either accumulator structure (the Kahan comp
-    terms are already folded into the running sums)."""
-    return (acc[0], acc[2]) if len(acc) == 4 else (acc[0], acc[1])
-
-
-def _force_kernel(rg_ref, cg_ref,
-                  xi_ref, yi_ref, mi_ref, ri_ref,
-                  xj_ref, yj_ref, mj_ref, rj_ref,
-                  xf_ref, yf_ref,
-                  *, tile_i: int, tile_j: int, n_cols: int, gravity: float,
-                  biased: bool = True, accum: str = "plain"):
-    i = pl.program_id(0)
-    row0 = i * tile_i
-    cdt = _compute_dtype(xi_ref.dtype)
-
-    xi = xi_ref[0, pl.ds(row0, tile_i)].astype(cdt).reshape(tile_i, 1)
-    yi = yi_ref[0, pl.ds(row0, tile_i)].astype(cdt).reshape(tile_i, 1)
-    ri = ri_ref[0, pl.ds(row0, tile_i)].astype(cdt).reshape(tile_i, 1)
-    # Row indices relative to the column block's global start.
-    r0_rel = rg_ref[0, 0] + row0 - cg_ref[0, 0]
-    irel = r0_rel + lax.broadcasted_iota(jnp.int32, (tile_i, 1), 0)
-
-    def col_read(c0):
-        return (xj_ref[0, pl.ds(c0, tile_j)].astype(cdt).reshape(1, tile_j),
-                yj_ref[0, pl.ds(c0, tile_j)].astype(cdt).reshape(1, tile_j),
-                mj_ref[0, pl.ds(c0, tile_j)].astype(cdt).reshape(1, tile_j),
-                rj_ref[0, pl.ds(c0, tile_j)].astype(cdt).reshape(1, tile_j))
-
-    sweep = _make_col_sweep(xi, yi, ri, irel, col_read,
-                            tile_i=tile_i, tile_j=tile_j, biased=biased,
-                            accum=accum)
-    n_tiles = n_cols // tile_j
-    j1, j2 = _segment_bounds(r0_rel, tile_i, tile_j, n_tiles)
-    acc_x, acc_y = _acc_finish(
-        sweep(j1, j2, n_tiles, _acc_init(tile_i, cdt, accum)))
-
+    if compensated:
+        fx = jnp.sum(acc[0], axis=1) - jnp.sum(acc[1], axis=1)
+        fy = jnp.sum(acc[2], axis=1) - jnp.sum(acc[3], axis=1)
+    else:
+        fx = jnp.sum(acc[0], axis=1)
+        fy = jnp.sum(acc[1], axis=1)
     # Row factor G * m_i applied once after the reduction.
-    gmi = mi_ref[0, pl.ds(row0, tile_i)].astype(cdt).reshape(tile_i, 1) \
-        * gravity
-    xf_ref[0, pl.ds(row0, tile_i)] = (acc_x * gmi).reshape(tile_i)
-    yf_ref[0, pl.ds(row0, tile_i)] = (acc_y * gmi).reshape(tile_i)
+    gmi = mi_ref[...].astype(cdt) * gravity
+    xf_ref[...] = fx * gmi
+    yf_ref[...] = fy * gmi
 
 
 def pallas_block_forces(cfg, xi, yi, mi, ri, xj, yj, mj, rj, *,
-                        row_g0=0, col_g0=0,
-                        tile_i: int = 1024, tile_j: int = 1024,
-                        interpret: bool = False, biased: bool = True,
+                        row_g0=0, col_g0=0, biased: bool = True,
                         accum: str = "plain"):
     """Force of every body in block J on every body in block I (one-sided,
-    fast mode).  Block I of size M, block J of size K; block sizes that are
-    not tile multiples are padded internally with inert far-away bodies (the
-    tile size is never shrunk — see _pad_block).  ``row_g0``/``col_g0`` are
-    the blocks' global starting body indices (traced or static)."""
+    fast mode).  Block I of size M, block J of size K, any sizes: both are
+    padded internally with inert far-away bodies to whole blocks.
+    ``row_g0``/``col_g0`` are the blocks' global starting body indices
+    (traced or static)."""
     m = xi.shape[0]
-    k = xj.shape[0]
-    # Keep the requested tile but never larger than the (lane-aligned) block.
-    tile_i = min(tile_i, _round_up(m, 128))
-    tile_j = min(tile_j, _round_up(k, 128))
-    if accum == "compensated":
-        # The Kahan carries enlarge the kernel's scoped-VMEM footprint (a
-        # (1024, 1024) tile overflows the 16 MB scoped limit by ~2.2 MB on
-        # v5e); halving the row tile restores headroom at no measured cost
-        # (the tile sweeps are flat across (256..1024, 1024) — REPORT).
-        tile_i = min(tile_i, 512)
-    m_pad = _round_up(m, tile_i)
-    k_pad = _round_up(k, tile_j)
+    m_pad = _round_up(m, BLOCK_I)
+    k_pad = _round_up(xj.shape[0], BLOCK_J)
     xi, yi, mi, ri = _pad_block(xi, yi, mi, ri, m_pad)
     xj, yj, mj, rj = _pad_block(xj, yj, mj, rj, k_pad)
     dtype = xi.dtype
     # Forces come back in the COMPUTE dtype (fp32 for bf16 inputs — see
     # _compute_dtype) and are cast to the run dtype outside the kernel.
     cdt = _compute_dtype(dtype)
+    off = jnp.reshape(jnp.asarray(row_g0, jnp.int32)
+                      - jnp.asarray(col_g0, jnp.int32), (1,))
 
     kernel = functools.partial(
-        _force_kernel, tile_i=tile_i, tile_j=tile_j, n_cols=k_pad,
+        _force_kernel, block_i=BLOCK_I, block_j=BLOCK_J, n_cols=k_pad,
         gravity=float(cfg.gravity), biased=biased, accum=accum)
-
-    vec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
+    whole = pl.BlockSpec()
+    rows = pl.BlockSpec((BLOCK_I,), lambda i: (i,))
     xf, yf = pl.pallas_call(
         kernel,
-        grid=(m_pad // tile_i,),
-        in_specs=[smem, smem] + [vec] * 8,
-        out_specs=(vec, vec),
-        out_shape=(jax.ShapeDtypeStruct((1, m_pad), cdt),
-                   jax.ShapeDtypeStruct((1, m_pad), cdt)),
-        cost_estimate=pl.CostEstimate(
-            flops=17 * m_pad * k_pad,
-            bytes_accessed=(4 * m_pad + 4 * k_pad) * 4,
-            transcendentals=m_pad * k_pad),
-        interpret=interpret,
-    )(_as_scalar_arr(row_g0), _as_scalar_arr(col_g0),
-      xi.reshape(1, m_pad), yi.reshape(1, m_pad),
-      mi.reshape(1, m_pad), ri.reshape(1, m_pad),
-      xj.reshape(1, k_pad), yj.reshape(1, k_pad),
-      mj.reshape(1, k_pad), rj.reshape(1, k_pad))
-    return (xf.reshape(m_pad)[:m].astype(dtype),
-            yf.reshape(m_pad)[:m].astype(dtype))
+        grid=(m_pad // BLOCK_I,),
+        in_specs=[whole] + [rows] * 4 + [whole] * 4,
+        out_specs=(rows, rows),
+        out_shape=(jax.ShapeDtypeStruct((m_pad,), cdt),
+                   jax.ShapeDtypeStruct((m_pad,), cdt)),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                 num_stages=NUM_STAGES),
+        interpret=interpret_mode(),
+        name="nbody_forces",
+    )(off, xi, yi, mi, ri, xj, yj, mj, rj)
+    return xf[:m].astype(dtype), yf[:m].astype(dtype)
 
 
-def _force_kernel_streamed(rg_ref, cg_ref,
-                           xi_ref, yi_ref, mi_ref, ri_ref,
-                           xj_ref, yj_ref, mj_ref, rj_ref,
-                           xf_ref, yf_ref, cx_ref=None, cy_ref=None,
-                           *, tile_i: int, tile_j: int, band: int,
-                           gravity: float, biased: bool = True,
-                           accum: str = "plain"):
-    """Grid-pipelined variant: grid = (row tiles, column bands); Pallas
-    streams (1, band) column bands HBM->VMEM with automatic double buffering,
-    so the body arrays never need to fit in VMEM (N is unbounded).  Inside
-    each band the kernel runs the same 3-segment sub-tile sweep as the
-    resident kernel (segment bounds relative to the band's global start).
-
-    The output block (same row tile for every band) stays resident in VMEM
-    and is the accumulator — the classic revisited-output reduction.  With
-    accum="compensated" the cross-band folds are Kahan-compensated through
-    two VMEM scratch buffers (``cx_ref``/``cy_ref``; TPU grids execute
-    sequentially per core, so scratch persists across grid steps), on top of
-    the compensated within-band sweep.
-    """
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    nj = pl.num_programs(1)
-    cdt = _compute_dtype(xi_ref.dtype)
-
-    xi = xi_ref[:].astype(cdt).reshape(tile_i, 1)
-    yi = yi_ref[:].astype(cdt).reshape(tile_i, 1)
-    ri = ri_ref[:].astype(cdt).reshape(tile_i, 1)
-    # Row indices relative to THIS band's global start.
-    r0_rel = (rg_ref[0, 0] + i * tile_i) - (cg_ref[0, 0] + j * band)
-    irel = r0_rel + lax.broadcasted_iota(jnp.int32, (tile_i, 1), 0)
-
-    def col_read(c0):
-        return (xj_ref[0, pl.ds(c0, tile_j)].astype(cdt).reshape(1, tile_j),
-                yj_ref[0, pl.ds(c0, tile_j)].astype(cdt).reshape(1, tile_j),
-                mj_ref[0, pl.ds(c0, tile_j)].astype(cdt).reshape(1, tile_j),
-                rj_ref[0, pl.ds(c0, tile_j)].astype(cdt).reshape(1, tile_j))
-
-    sweep = _make_col_sweep(xi, yi, ri, irel, col_read,
-                            tile_i=tile_i, tile_j=tile_j, biased=biased,
-                            accum=accum)
-    n_sub = band // tile_j
-    j1, j2 = _segment_bounds(r0_rel, tile_i, tile_j, n_sub)
-    fx, fy = _acc_finish(sweep(j1, j2, n_sub,
-                               _acc_init(tile_i, cdt, accum)))
-    fx = fx.reshape(1, tile_i)
-    fy = fy.reshape(1, tile_i)
-
-    @pl.when(j == 0)
-    def _():
-        xf_ref[:] = jnp.zeros_like(xf_ref)
-        yf_ref[:] = jnp.zeros_like(yf_ref)
-        if accum == "compensated":
-            cx_ref[:] = jnp.zeros_like(cx_ref)
-            cy_ref[:] = jnp.zeros_like(cy_ref)
-
-    if accum == "compensated":
-        tx, ncx = _kahan_add(xf_ref[:], cx_ref[:], fx)
-        xf_ref[:] = tx
-        cx_ref[:] = ncx
-        ty, ncy = _kahan_add(yf_ref[:], cy_ref[:], fy)
-        yf_ref[:] = ty
-        cy_ref[:] = ncy
-    else:
-        xf_ref[:] += fx
-        yf_ref[:] += fy
-
-    @pl.when(j == nj - 1)
-    def _():
-        gmi = mi_ref[:].astype(cdt) * gravity
-        xf_ref[:] *= gmi
-        yf_ref[:] *= gmi
-
-
-def pallas_block_forces_streamed(cfg, xi, yi, mi, ri, xj, yj, mj, rj, *,
-                                 row_g0=0, col_g0=0,
-                                 tile_i: int = 512, tile_j: int = 1024,
-                                 band: int = 65536,
-                                 interpret: bool = False,
-                                 biased: bool = True,
-                                 accum: str = "plain"):
-    """HBM-streaming block forces for N beyond the 128K VMEM-resident limit.
-
-    Awkward sizes are padded to tile/band multiples with inert bodies rather
-    than shrinking the tiles (see _pad_block)."""
-    m_orig = xi.shape[0]
-    k = xj.shape[0]
-    tile_i = min(tile_i, _round_up(m_orig, 128))
-    m = _round_up(m_orig, tile_i)
-    tile_j = min(tile_j, _round_up(k, 128))
-    band = max(tile_j, min(band, _round_up(k, tile_j)))
-    band -= band % tile_j  # band must be a whole number of sub-tiles
-    k_pad = _round_up(k, band)
-    xi, yi, mi, ri = _pad_block(xi, yi, mi, ri, m)
-    xj, yj, mj, rj = _pad_block(xj, yj, mj, rj, k_pad)
-    k = k_pad
-    dtype = xi.dtype
-    # Output accumulator and Kahan scratch live in the COMPUTE dtype (fp32
-    # for bf16 inputs) — the cross-band revisited-output reduction must not
-    # round through an 8-bit mantissa.  Cast back at the end.
-    cdt = _compute_dtype(dtype)
-
-    kernel = functools.partial(
-        _force_kernel_streamed, tile_i=tile_i, tile_j=tile_j, band=band,
-        gravity=float(cfg.gravity), biased=biased, accum=accum)
-
-    def row_spec():
-        return pl.BlockSpec((1, tile_i), lambda i, j: (0, i),
-                            memory_space=pltpu.VMEM)
-
-    def col_spec():
-        return pl.BlockSpec((1, band), lambda i, j: (0, j),
-                            memory_space=pltpu.VMEM)
-
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-
-    # Cross-band Kahan compensation lives in VMEM scratch (persists across
-    # the sequentially-executed grid on TPU).
-    scratch = ([pltpu.VMEM((1, tile_i), cdt)] * 2
-               if accum == "compensated" else [])
-
-    xf, yf = pl.pallas_call(
-        kernel,
-        grid=(m // tile_i, k // band),
-        in_specs=[smem, smem,
-                  row_spec(), row_spec(), row_spec(), row_spec(),
-                  col_spec(), col_spec(), col_spec(), col_spec()],
-        out_specs=(row_spec(), row_spec()),
-        out_shape=(jax.ShapeDtypeStruct((1, m), cdt),
-                   jax.ShapeDtypeStruct((1, m), cdt)),
-        scratch_shapes=scratch,
-        cost_estimate=pl.CostEstimate(
-            flops=17 * m * k, bytes_accessed=(4 * m + 4 * k) * 4,
-            transcendentals=m * k),
-        interpret=interpret,
-    )(_as_scalar_arr(row_g0), _as_scalar_arr(col_g0),
-      xi.reshape(1, m), yi.reshape(1, m), mi.reshape(1, m), ri.reshape(1, m),
-      xj.reshape(1, k), yj.reshape(1, k), mj.reshape(1, k), rj.reshape(1, k))
-    return (xf.reshape(m)[:m_orig].astype(dtype),
-            yf.reshape(m)[:m_orig].astype(dtype))
-
-
-# Above 128K bodies the four (1, N) fp32 vectors plus the (tile_i, tile_j)
-# intermediates no longer fit in VMEM; the streamed kernel takes over.
-_VMEM_RESIDENT_LIMIT = 1 << 17
-
-
-def pallas_block_forces_auto(cfg, xi, yi, mi, ri, xj, yj, mj, rj, *,
-                             row_g0=0, col_g0=0,
-                             tile_i: int = 1024, tile_j: int = 1024,
-                             interpret: bool = False, biased: bool = True,
-                             accum: str = "plain"):
-    """Block forces with automatic VMEM-resident vs HBM-streamed dispatch.
-
-    The sharded paths (all-gather columns = all N bodies; grid2d columns =
-    N/Pr bodies) call this so the multi-chip composition has no 128K column
-    ceiling — the streamed kernel takes over exactly as the single-chip
-    ``pallas_forces`` does.  Reference bar: the Allgatherv scheme scales with
-    N unbounded (nbody-par.c:913-917)."""
-    if max(xi.shape[0], xj.shape[0]) > _VMEM_RESIDENT_LIMIT:
-        return pallas_block_forces_streamed(
-            cfg, xi, yi, mi, ri, xj, yj, mj, rj,
-            row_g0=row_g0, col_g0=col_g0, interpret=interpret, biased=biased,
-            accum=accum)
-    return pallas_block_forces(cfg, xi, yi, mi, ri, xj, yj, mj, rj,
-                               row_g0=row_g0, col_g0=col_g0,
-                               tile_i=tile_i, tile_j=tile_j,
-                               interpret=interpret, biased=biased,
-                               accum=accum)
-
-
-def pallas_forces(cfg, x, y, mass, radius, *, tile_i: int = 1024,
-                  tile_j: int = 1024, interpret: bool = False,
-                  biased: bool = True, accum: str = "plain"):
-    """Total pairwise forces (square case) via the Pallas kernel.
-
-    Dispatches to the VMEM-resident kernel for small/medium N and the
-    HBM-streaming grid-pipelined kernel for large N.
-    """
-    if x.shape[0] > _VMEM_RESIDENT_LIMIT:
-        # The streamed kernel has its own tuned tile defaults (the square
-        # kernel's tiles are sized for VMEM-resident inputs).
-        return pallas_block_forces_streamed(
-            cfg, x, y, mass, radius, x, y, mass, radius, interpret=interpret,
-            biased=biased, accum=accum)
+def pallas_forces(cfg, x, y, mass, radius, *, biased: bool = True,
+                  accum: str = "plain"):
+    """Total pairwise forces (square case) via the Pallas kernel."""
     return pallas_block_forces(cfg, x, y, mass, radius, x, y, mass, radius,
-                               tile_i=tile_i, tile_j=tile_j,
-                               interpret=interpret, biased=biased,
-                               accum=accum)
+                               biased=biased, accum=accum)
 
 
 def any_coincident(x, y, mass):
@@ -538,9 +298,9 @@ def any_coincident(x, y, mass):
     The cheap (O(N log N), vs the O(N^2) force kernel) runtime test behind
     the biased/unbiased kernel dispatch in models/engine.step: coincident
     pairs need the reference's atan2(0,0) kick (nbody-seq.c:91-106), which
-    the biased kernel prices at ~2 VPU ops/pair — steps without such pairs
-    (in practice all but the first few of a glibc integer-pixel init) take
-    the cheaper unbiased kernel instead.
+    the biased kernel prices with extra per-pair work — steps without such
+    pairs (in practice all but the first few of a glibc integer-pixel init)
+    take the cheaper unbiased kernel instead.
 
     Exact, no false negatives: a 3-key lexicographic sort puts equal
     positions adjacent and groups them by mass, so zero-mass padding (which

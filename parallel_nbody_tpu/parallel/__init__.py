@@ -1,5 +1,5 @@
-"""Multi-chip / multi-host parallel layer (the reference's MPI layer,
-TPU-style): 1-D body-axis sharding with all-gather or ppermute-ring comm
+"""Multi-device / multi-host parallel layer (the reference's MPI layer):
+1-D body-axis sharding with all-gather or ppermute-ring comm
 (sharded_step), 2-D force-matrix decomposition (grid2d), mesh helpers,
 distributed launch (multihost), and the virtual-mesh dryrun gate."""
 

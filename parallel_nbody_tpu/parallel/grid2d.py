@@ -4,7 +4,7 @@ The reference (and this repo's 1-D paths) decompose the BODY axis: every
 chip owns N/P bodies and per-step communication moves O(N) positions
 (all-gather) or O(N) cumulative ring traffic.  The classic force-matrix
 decomposition (Plimpton 1995) shards the N x N interaction matrix over a
-2-D processor grid instead — mapped here onto a TPU mesh
+2-D processor grid instead — mapped here onto a device mesh
 ``Mesh((Pr, Pc), ("rows", "cols"))``:
 
   - bodies are block-sharded over all P = Pr*Pc chips (PartitionSpec over
@@ -19,8 +19,8 @@ decomposition (Plimpton 1995) shards the N x N interaction matrix over a
 
 Per-step comm per chip: O(N/Pr) + O(N/Pc) gathered positions + an O(N/Pr)
 psum — O(N/sqrt(P)) for a square mesh, vs O(N) for the 1-D all-gather.
-This is the scaling path for large P where the 1-D gather saturates ICI;
-both collectives ride neighboring mesh dimensions.
+This is the scaling path for large P where the 1-D gather saturates the
+interconnect.
 
 Compute per chip is (N/Pr)(N/Pc) = N^2/P pairs — identical to the 1-D
 schemes; only the communication volume changes.
@@ -48,8 +48,7 @@ _SPEC = P((ROW_AXIS, COL_AXIS))
 
 def make_mesh2d(pr: int, pc: int, devices=None) -> Mesh:
     """(pr, pc) mesh over ("rows", "cols").  Strict about device counts
-    (same policy as mesh.make_mesh); axes are ICI-adjacent where the
-    physical topology allows (mesh.device_grid)."""
+    (same policy as mesh.make_mesh)."""
     if devices is None:
         devices = jax.devices()
     need = pr * pc
@@ -113,28 +112,25 @@ def _grid2d_run_local(cfg: SimConfig, steps: int,
             # The kernel handles self-pairs and coincident pairs via global
             # indices, but its offsets describe CONTIGUOUS blocks — the col
             # group is strided (one blk-sized chunk per mesh row), so call
-            # the kernel once per contiguous chunk and accumulate.  Each
-            # call auto-dispatches to the HBM-streamed kernel above the
-            # VMEM-resident limit.  The coincident-pair bias is gated per
+            # the kernel once per contiguous chunk and accumulate.  The
+            # coincident-pair bias is gated per
             # step by the gid-tagged duplicate test over row+col groups
             # (copies of one body appearing in both groups are ignored) —
             # the grid2d analog of the allgather path's runtime dispatch.
             from ..ops.pallas_step import (any_coincident_tagged,
-                                           pallas_block_forces_auto)
+                                           pallas_block_forces)
 
             def cell_forces(biased):
                 fx = jnp.zeros_like(x_row)
                 fy = jnp.zeros_like(y_row)
                 for rr_c in range(pr):
                     sl = slice(rr_c * blk, (rr_c + 1) * blk)
-                    dfx, dfy = pallas_block_forces_auto(
+                    dfx, dfy = pallas_block_forces(
                         cfg, x_row, y_row, m_row, r_row,
                         x_col[sl], y_col[sl], m_col[sl], r_col[sl],
                         row_g0=my_r * row_n,
                         col_g0=(rr_c * pc + my_c) * blk,
-                        tile_i=cfg.tile_i, tile_j=cfg.tile_j,
-                        interpret=cfg.pallas_interpret, accum=cfg.accum,
-                        biased=biased)
+                        accum=cfg.accum, biased=biased)
                     fx = fx + dfx
                     fy = fy + dfy
                 return fx, fy

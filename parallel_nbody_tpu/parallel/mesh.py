@@ -12,40 +12,21 @@ from __future__ import annotations
 
 import jax
 import numpy as np
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 BODY_AXIS = "bodies"
 
 
 def device_grid(shape: tuple[int, ...], devices) -> np.ndarray:
-    """Arrange ``devices`` into ``shape`` with ICI-adjacent mesh axes.
+    """Arrange ``devices`` into ``shape`` in id order.
 
-    ``jax.devices()`` is id-ordered, which is NOT a torus-adjacent ring on
-    real TPU slices — naive reshape would make ring ppermutes and the grid2d
-    row/col gathers hop multiple ICI links.  mesh_utils.create_device_mesh
-    knows the physical topology; it has no assignment for some shapes (e.g.
-    a 3-device subset of a slice, or heterogeneous CPU lists), where plain
-    list order is the only choice anyway.  The fallback is warned about on
-    real multi-device TPU meshes — there it silently costs ICI hops.
-    """
-    try:
-        return mesh_utils.create_device_mesh(shape, devices=devices)
-    except (ValueError, AssertionError, NotImplementedError) as e:
-        devices = list(devices)
-        if len(devices) > 1 and devices[0].platform == "tpu":
-            import warnings
-            warnings.warn(
-                "no physical-topology assignment for a %s mesh over %d TPU "
-                "devices (%s); falling back to id order — ring/grid "
-                "collectives may hop multiple ICI links" %
-                (shape, len(devices), e))
-        return np.asarray(devices).reshape(shape)
+    The GPUs of one machine are joined all to all by NVLink, so every
+    placement costs the same and the mesh follows the algorithm alone."""
+    return np.asarray(list(devices)).reshape(shape)
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
-    """1-D mesh over the body axis, with neighboring shards on ICI
-    neighbors where the topology allows (see device_grid)."""
+    """1-D mesh over the body axis (devices in id order)."""
     if devices is None:
         devices = jax.devices()
     if n_devices is not None:

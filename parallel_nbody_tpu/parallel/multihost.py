@@ -1,18 +1,17 @@
-"""Multi-host launch support (the prun/mpirun analog).
+"""Multi-node launch support (the prun/mpirun analog).
 
 The reference launches MPI ranks with DAS-5's ``prun`` (bin/tests.sh:38).
-The TPU equivalent is one Python process per host, each seeing its local
-chips, joined into one global runtime by ``jax.distributed.initialize`` —
-collectives then ride ICI within a slice and DCN across hosts, chosen by XLA
-from the same ``shard_map`` program used single-host.
+On one machine a single Python process drives all of its GPUs: the CLI's
+``--devices``/``--mesh2d`` meshes span every local device and XLA runs the
+collectives over NCCL.  Only a launch across several machines needs one
+process per machine, joined into one runtime by ``jax.distributed``:
 
-Typical launch (one command per host, e.g. via gcloud on a v5p pod slice):
+    COORDINATOR_ADDRESS=host0:1234 NBODY_NUM_PROCESSES=2 NBODY_PROCESS_ID=0 \
+        python -m parallel_nbody_tpu.cli 1048576 0 arena.ppm 100 --no-clamp
 
-    python -m parallel_nbody_tpu.cli 10000000 0 arena.ppm 100 \
-        --no-clamp --pallas --devices=ALL
-
-with ``initialize()`` called first (the CLI does this automatically when the
-standard TPU pod environment variables are present).
+(and ``NBODY_PROCESS_ID=1`` on the second machine).  The CLI calls
+``initialize()`` when ``COORDINATOR_ADDRESS`` is set, and fails if the
+process cannot join.
 """
 
 from __future__ import annotations
@@ -22,28 +21,22 @@ import os
 import jax
 
 
-def running_under_pod_launcher() -> bool:
-    """True when an explicit multi-host coordinator is configured.
-
-    Deliberately conservative: only an explicit coordinator address counts
-    (single-host dev environments sometimes carry stray TPU_* variables like
-    ``TPU_WORKER_HOSTNAMES=localhost``)."""
-    return ("COORDINATOR_ADDRESS" in os.environ
-            or "MEGASCALE_COORDINATOR_ADDRESS" in os.environ)
+def multi_node_launch() -> bool:
+    """True when an explicit multi-node coordinator is configured."""
+    return "COORDINATOR_ADDRESS" in os.environ
 
 
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Join the global distributed runtime.  With no args, uses the TPU pod
-    auto-bootstrap (metadata server); explicit args support manual setups:
+    """Join the global distributed runtime.  Arguments default to the
+    ``COORDINATOR_ADDRESS``, ``NBODY_NUM_PROCESSES`` and ``NBODY_PROCESS_ID``
+    environment variables (bin/multihost-cli.sh):
 
         initialize("host0:1234", num_processes=2, process_id=host_index)
     """
     coordinator_address = coordinator_address or os.environ.get(
         "COORDINATOR_ADDRESS")
-    # Manual launches (the mpirun/prun analog, bin/multihost-cli.sh) pass
-    # the process topology via env; TPU pods auto-bootstrap without it.
     if num_processes is None and "NBODY_NUM_PROCESSES" in os.environ:
         num_processes = int(os.environ["NBODY_NUM_PROCESSES"])
     if process_id is None and "NBODY_PROCESS_ID" in os.environ:
@@ -63,5 +56,4 @@ def topology() -> dict:
         "process_id": jax.process_index(),
         "global_devices": jax.device_count(),
         "local_devices": jax.local_device_count(),
-        "chips_per_host": jax.local_device_count(),
     }

@@ -2,9 +2,9 @@
 
 The reference stores bodies as a double-buffered array-of-structs
 (``struct bodyType`` with ``x[2]/y[2]``, nbody/nbody-seq.c:30-50) and flips an
-``old`` bit each step.  TPU-native design: structure-of-arrays ``jnp`` vectors
-in an immutable pytree — functional updates make the buffer flip disappear, and
-1-D SoA vectors map directly onto VPU lanes and Pallas tiles.
+``old`` bit each step.  Here: structure-of-arrays ``jnp`` vectors in an
+immutable pytree — functional updates make the buffer flip disappear, and
+1-D SoA vectors map directly onto the force kernel's row and column tiles.
 
 Forces are carried in the state even though they are recomputed every step,
 because the reference's output contract prints the final step's forces

@@ -15,9 +15,7 @@ REF_FIXTURE = os.path.join(REPO, "tests", "fixtures", "128_MY_REF_OUTPUT")
 def run_cli(args, env_extra=None):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    # NBODY_PLATFORM routes through jax.config.update in the CLI (the
-    # JAX_PLATFORMS env var is ignored by some ambient platform plugins).
-    env["NBODY_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     flags = [f for f in env.get("XLA_FLAGS", "").split()
              if "xla_force_host_platform_device_count" not in f]
     flags.append("--xla_force_host_platform_device_count=8")
@@ -461,56 +459,9 @@ def test_install_smoke():
     assert "INSTALL_SMOKE_OK" in r.stdout
 
 
-def test_huge_path_via_cli_matches_fused(tmp_path):
-    """The CLI's huge-N machinery (host-driven row-chunked steps + hosted
-    renderer; the N=10M path, VERDICT r3 #4) driven at CPU size via the
-    env-overridable threshold: results must match the fused path to fp32
-    print precision and a frame must be rendered."""
-    from parallel_nbody_tpu.utils import ppm
-    arena = str(tmp_path / "a.ppm")
-    ppm.create(arena, 128, 96)
-    log = str(tmp_path / "frames.log")
-    fused = run_cli(["300", "0", arena, "2", "--pallas", "--dtype=float32"])
-    assert fused.returncode == 0, fused.stderr[-3000:]
-    hosted = run_cli(["300", "1", arena, "2", "--pallas",
-                      "--dtype=float32"],
-                     env_extra={"NBODY_HUGE_THRESHOLD": "100",
-                                "NBODY_FRAME_LOG": log})
-    assert hosted.returncode == 0, hosted.stderr[-3000:]
-    a = [[float(v) for v in l.split()] for l in fused.stdout.splitlines()]
-    b = [[float(v) for v in l.split()] for l in hosted.stdout.splitlines()]
-    assert len(b) == 300
-    import numpy as np
-    np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                               rtol=1e-4, atol=2e-3)
-    with open(log) as f:
-        assert sum(1 for _ in f) >= 1  # hosted renderer produced a frame
-    px = ppm.read_pixels(ppm.read_header(arena))
-    assert px.any()
-
-
-def test_hw_validate_gate_skips_cleanly_off_tpu():
-    """The on-hardware gate (benchmarks/hw_validate.py) must stay runnable:
-    off-TPU it reports {"skipped": true} and exits 0, so a broken import or
-    API drift in the gate is caught by the suite, not on bench day."""
-    import json
-
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env["NBODY_PLATFORM"] = "cpu"
-    r = subprocess.run(
-        [sys.executable, os.path.join(REPO, "benchmarks", "hw_validate.py")],
-        capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
-    assert r.returncode == 0, r.stderr[-3000:]
-    info = json.loads(r.stdout.splitlines()[-1])
-    assert info["skipped"] is True
-    assert info["backend"] == "cpu"
-
-
 def test_frame_rendering_with_secsup_sharded(tmp_path):
-    """secsup>0 on a SHARDED run: the per-chunk readback fence and the
-    renderer both consume a device-sharded state (state.x[:1] readback
-    outside jit triggers a cross-shard gather) — must not crash, must
+    """secsup>0 on a SHARDED run: the per-chunk completion fence and the
+    renderer both consume a device-sharded state — must not crash, must
     render, and stdout must stay byte-invariant vs single-device."""
     from parallel_nbody_tpu.utils import ppm
     p1 = str(tmp_path / "a.ppm")

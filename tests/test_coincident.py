@@ -7,8 +7,8 @@ kick along ±x, + for the smaller global index, - for the larger
 real runs contain such pairs (15 at N=4096).  True self-pairs and zero-mass
 padding must stay at zero force.
 
-Coverage: dense trig (already-exact oracle), dense fast, Pallas resident,
-Pallas streamed, sharded allgather/ring (xla fast/trig + pallas), grid2d
+Coverage: dense trig (already-exact oracle), dense fast, the Pallas kernel
+(fp32 and fp64), sharded allgather/ring (xla fast/trig + pallas), grid2d
 (xla fast/trig + pallas), forces_block_vs_full — with coincident pairs
 deliberately split ACROSS shard boundaries.
 """
@@ -23,8 +23,7 @@ from parallel_nbody_tpu.config import SimConfig
 from parallel_nbody_tpu.models.engine import run
 from parallel_nbody_tpu.ops.forces import (compute_forces_dense,
                                            forces_block_vs_full)
-from parallel_nbody_tpu.ops.pallas_step import (pallas_block_forces,
-                                                pallas_block_forces_streamed)
+from parallel_nbody_tpu.ops.pallas_step import pallas_block_forces
 from parallel_nbody_tpu.parallel.grid2d import make_grid2d_run, make_mesh2d, \
     shard_state_2d
 from parallel_nbody_tpu.parallel.mesh import make_mesh, shard_state
@@ -36,8 +35,7 @@ from parallel_nbody_tpu.utils.output import format_state
 TRIG64 = SimConfig(force_mode="trig", dtype="float64")
 FAST64 = SimConfig(force_mode="fast", dtype="float64")
 FAST32 = SimConfig(force_mode="fast", dtype="float32")
-PALLAS32 = SimConfig(force_mode="fast", dtype="float32", kernel="pallas",
-                     pallas_interpret=True)
+PALLAS32 = SimConfig(force_mode="fast", dtype="float32", kernel="pallas")
 
 # The judge's round-2 repro: masses 5 and 7, radii 1.5, same position.
 # force = 1.1 * 5 * 7 / (1.5 + 1.5)^2 = 38.5 / 9.
@@ -58,11 +56,11 @@ def test_dense_coincident_kick(cfg):
     np.testing.assert_allclose(np.asarray(yf), [0.0, 0.0])
 
 
-@pytest.mark.parametrize("kernel_fn", [pallas_block_forces,
-                                       pallas_block_forces_streamed])
-def test_pallas_coincident_kick(kernel_fn):
-    x, y, m, r = _pair_state(jnp.float32)
-    xf, yf = kernel_fn(PALLAS32, x, y, m, r, x, y, m, r, interpret=True)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pallas_coincident_kick(dtype):
+    x, y, m, r = _pair_state(jnp.dtype(dtype))
+    xf, yf = pallas_block_forces(PALLAS32.replace(dtype=dtype),
+                                 x, y, m, r, x, y, m, r)
     np.testing.assert_allclose(np.asarray(xf), [KICK, -KICK], rtol=1e-5)
     np.testing.assert_allclose(np.asarray(yf), [0.0, 0.0])
 
@@ -213,8 +211,7 @@ def test_pallas_engine_dispatch_handles_coincident_state(oracle_step):
     runtime (lax.cond): a full Pallas engine run over the coincident state
     must match the trig fp64 oracle, and the post-step state (now
     coincidence-free) must keep evolving correctly on the unbiased kernel."""
-    pallas64 = SimConfig(force_mode="fast", dtype="float64", kernel="pallas",
-                         pallas_interpret=True)
+    pallas64 = SimConfig(force_mode="fast", dtype="float64", kernel="pallas")
     out = run(pallas64, _coincident_state(), 1)
     _assert_forces_close(out, oracle_step, rtol=1e-9)
 

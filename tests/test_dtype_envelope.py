@@ -1,5 +1,5 @@
 """The dtype support envelope: float16 is REJECTED loudly everywhere, and
-bfloat16 (the TPU-native 16-bit mode) ships with pinned accuracy
+bfloat16 (the 16-bit storage mode) ships with pinned accuracy
 characterization instead of silent hope.
 
 Why float16 can never work here: the reference init law sets
@@ -112,43 +112,37 @@ def test_bf16_short_trajectory_stays_finite_and_close():
 
 
 def test_bf16_pallas_is_storage_format_with_fp32_compute():
-    """The Pallas kernels treat sub-32-bit dtypes as STORAGE formats: inputs
+    """The Pallas kernel treats sub-32-bit dtypes as STORAGE formats: inputs
     upcast to fp32 at the loads, partial sums accumulate in fp32, the result
-    casts back once at the end (ops/pallas_step.py::_compute_dtype).  This
-    is both a Mosaic requirement (minor-dim reshapes are 32-bit-only — the
-    bf16 kernel failed hardware compilation before round 5) and the right
-    TPU recipe (fp32 VPU lanes; O(N) sums in 8 mantissa bits would swamp
-    the force signal).  Pin: bf16-in forces == the fp32 kernel's result on
-    the same quantized inputs, rounded once to bf16 — both variants."""
+    casts back once at the end (ops/pallas_step.py::_compute_dtype) — O(N)
+    sums in 8 mantissa bits would swamp the force signal.  Pin: bf16-in
+    forces == the fp32 kernel's result on the same quantized inputs, rounded
+    once to bf16 — plain and compensated accumulation."""
     import jax.numpy as jnp
 
-    from parallel_nbody_tpu.ops.pallas_step import (
-        pallas_block_forces_streamed, pallas_forces)
+    from parallel_nbody_tpu.ops.pallas_step import (pallas_block_forces,
+                                                    pallas_forces)
 
     n = 192
-    cfgb = SimConfig(force_mode="fast", dtype="bfloat16", kernel="pallas",
-                     pallas_interpret=True)
+    cfgb = SimConfig(force_mode="fast", dtype="bfloat16", kernel="pallas")
     cfg32 = cfgb.replace(dtype="float32")
     sb = init_state(n, cfgb)
     args32 = [jnp.asarray(a, jnp.float32)
               for a in (sb.x, sb.y, sb.mass, sb.radius)]
 
-    fxb, fyb = pallas_forces(cfgb, sb.x, sb.y, sb.mass, sb.radius,
-                             interpret=True)
-    fx32, fy32 = pallas_forces(cfg32, *args32, interpret=True)
+    fxb, fyb = pallas_forces(cfgb, sb.x, sb.y, sb.mass, sb.radius)
+    fx32, fy32 = pallas_forces(cfg32, *args32)
     assert fxb.dtype == jnp.bfloat16
     assert np.array_equal(np.asarray(fx32.astype(jnp.bfloat16), np.float32),
                           np.asarray(fxb, np.float32))
     assert np.array_equal(np.asarray(fy32.astype(jnp.bfloat16), np.float32),
                           np.asarray(fyb, np.float32))
 
-    sxb, syb = pallas_block_forces_streamed(
+    sxb, syb = pallas_block_forces(
         cfgb, sb.x, sb.y, sb.mass, sb.radius, sb.x, sb.y, sb.mass, sb.radius,
-        band=128, tile_i=128, tile_j=128, interpret=True,
         accum="compensated")
-    sx32, sy32 = pallas_block_forces_streamed(
-        cfg32, *args32, *args32, band=128, tile_i=128, tile_j=128,
-        interpret=True, accum="compensated")
+    sx32, sy32 = pallas_block_forces(cfg32, *args32, *args32,
+                                     accum="compensated")
     assert sxb.dtype == jnp.bfloat16
     assert np.array_equal(np.asarray(sx32.astype(jnp.bfloat16), np.float32),
                           np.asarray(sxb, np.float32))

@@ -11,7 +11,7 @@ def test_animate_writes_frame_sequence(tmp_path):
     outdir = str(tmp_path / "frames")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env["NBODY_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "examples", "animate.py"),
          "32", "30", "10", outdir],

@@ -52,8 +52,7 @@ def test_grid2d_fast_mode_close_to_seq():
 
 def test_grid2d_pallas_close_to_seq():
     cfg = SimConfig(xdim=1024, ydim=768, force_mode="fast", dtype="float32",
-                    kernel="pallas", pallas_interpret=True,
-                    tile_i=64, tile_j=64)
+                    kernel="pallas")
     seq = run(cfg.replace(kernel="xla"), init_state(64, cfg), 5)
     out = _run_grid2d(2, 2, cfg=cfg, n=64, steps=5)
     np.testing.assert_allclose(np.asarray(out.x), np.asarray(seq.x),

@@ -26,7 +26,7 @@ def _forces(cfg, st, dx=0.0, dy=0.0, swap=False):
     if swap:
         x, y = y, x
     if cfg.kernel == "pallas":
-        return pallas_forces(cfg, x, y, st.mass, st.radius, interpret=True)
+        return pallas_forces(cfg, x, y, st.mass, st.radius)
     return compute_forces_dense(cfg, x, y, st.mass, st.radius)
 
 

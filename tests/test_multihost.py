@@ -6,6 +6,7 @@ single-device oracle.  The reference's analog is the prun multi-node launch
 (/root/reference/bin/tests.sh:38)."""
 
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -26,7 +27,7 @@ def _env_for(pid, port, n_dev=2):
     clobbered, matching conftest.py — ambient flags must survive."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env["NBODY_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     flags = [f for f in env.get("XLA_FLAGS", "").split()
              if "xla_force_host_platform_device_count" not in f]
     flags.append("--xla_force_host_platform_device_count=%d" % n_dev)
@@ -77,11 +78,23 @@ def _run_ranks(argvs, envs, timeout=300, merge_stderr=False):
     return results
 
 
+# The pieces of gloo's connection banner, "[Gloo] Rank r is connected to k
+# peer ranks. Expected number of connected peer ranks is : k", as its C++
+# stream writes them one by one.
+_GLOO_PIECES = re.compile(
+    r"\[Gloo\]|Rank|is connected to|peer ranks\.|"
+    r"Expected number of connected peer ranks is :")
+
+
 def _strip_gloo(s):
-    # The gloo transport prints a connection banner to stdout; it is
-    # library noise, not program output.
+    # The gloo transport prints connection banners to stdout; they are
+    # library noise, not program output.  Threads print them concurrently
+    # and their pieces interleave, so a line may hold two banner heads, a
+    # bare banner tail, a lone rank count or nothing.  Drop every line that
+    # is only banner pieces, digits and whitespace: program output never is
+    # (its state lines carry decimal points, its CSV rows commas).
     return "".join(l for l in s.splitlines(keepends=True)
-                   if not l.startswith("[Gloo]"))
+                   if not re.fullmatch(r"[\d\s]*", _GLOO_PIECES.sub("", l)))
 
 
 def _launch_cli_pair(args, timeout=300):

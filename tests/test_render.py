@@ -134,15 +134,3 @@ def test_tint_exactness_guard_fails_loudly():
     # Just inside the bound still works.
     out = tint_rgb(jnp.zeros((4,), jnp.int32), (1 << 29) - 3)
     assert out.shape == (4, 3)
-
-
-def test_render_frame_hosted_matches_on_device():
-    """The host-chunked large-N rasterizer (one dispatch per body chunk,
-    host-merged) must produce the same pixels as render_frame, including
-    first-hit-by-index z-order and n_real padding masks."""
-    from parallel_nbody_tpu.ops.render import render_frame_hosted
-    cfg = SimConfig(xdim=128, ydim=96, dtype="float64")
-    st = init_state(300, cfg)
-    want = np.asarray(render_frame(cfg, st.x, st.y, st.radius, 280, 32, 64))
-    got = render_frame_hosted(cfg, st.x, st.y, st.radius, 280, body_chunk=77)
-    np.testing.assert_array_equal(got, want)

@@ -1,4 +1,4 @@
-"""Sharding-grid invariance — the TPU analog of the reference's NP-grid
+"""Sharding-grid invariance — the JAX analog of the reference's NP-grid
 differential tests (bin/run-tests.sh: every NP in 1..8 must byte-match the
 sequential oracle).  Here: 1/2/4/8-way body shards on a virtual CPU mesh must
 produce output identical to the single-device fp64 run (and hence to the
@@ -149,8 +149,7 @@ def seq_output_small():
 
 def test_device_grid_covers_all_devices_once():
     """device_grid must be a permutation of the requested devices in the
-    requested shape, whether mesh_utils has a topology assignment (real TPU
-    slices) or falls back to list order (virtual CPU lists, odd subsets)."""
+    requested shape."""
     from parallel_nbody_tpu.parallel.mesh import device_grid
     devs = jax.devices()[:6]
     grid = device_grid((2, 3), devs)
@@ -158,19 +157,15 @@ def test_device_grid_covers_all_devices_once():
     assert {d.id for d in grid.ravel()} == {d.id for d in devs}
 
 
-def test_device_grid_fallback_preserves_list_order(monkeypatch):
-    """When mesh_utils has no topology assignment (it raises), device_grid
-    must fall back to the caller's list order — on CPU create_device_mesh
-    never raises, so force the except branch explicitly."""
-    from jax.experimental import mesh_utils
+@pytest.mark.parametrize("shape", [(4,), (2, 2), (2, 4), (8,)])
+def test_device_grid_keeps_id_order(shape):
+    """Devices joined all to all (NVLink) need no topology-aware placement:
+    the grid is the caller's list, in order, reshaped — also for a list
+    that is not sorted by id."""
+    import math
 
-    from parallel_nbody_tpu.parallel import mesh as mesh_mod
-
-    def boom(shape, devices=None):
-        raise ValueError("no assignment for this shape")
-
-    monkeypatch.setattr(mesh_utils, "create_device_mesh", boom)
-    devs = jax.devices()[:4]
-    grid = mesh_mod.device_grid((2, 2), devs)
-    assert grid.shape == (2, 2)
+    from parallel_nbody_tpu.parallel.mesh import device_grid
+    devs = jax.devices()[:math.prod(shape)][::-1]
+    grid = device_grid(shape, devs)
+    assert grid.shape == shape
     assert [d.id for d in grid.ravel()] == [d.id for d in devs]
